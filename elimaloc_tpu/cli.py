@@ -308,4 +308,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native ELiMaLoc rebuild.
+"""Configuration for the JAX ELiMaLoc rebuild.
 
 Mirrors every key of the reference's hot-reloadable INI config (reference:
 config/localization.ini:1-109 and config/calibration.ini) as typed dataclasses,
@@ -148,19 +148,19 @@ class PcmConfig:
     icp_method: IcpMethod = IcpMethod.GICP
     voxel_search_method: int = 2
     gicp_cov_search_dist: float = 0.4
-    max_thread: int = 10  # kept for config parity; TPU path ignores it
+    max_thread: int = 10  # kept for config parity; the device path ignores it
     max_iteration: int = 10
     max_search_dist: float = 5.0
     lm_lambda: float = 0.5
     icp_termination_threshold_m: float = 0.02
-    # TPU extension (no reference analog — the reference re-searches every
+    # Extension (no reference analog — the reference re-searches every
     # GN iteration, registration.cpp:310-347): when > 0, correspondences
     # found at one iteration are REUSED until the accumulated pose motion
     # (translation + rotation x scan radius) exceeds this bound, then
     # refreshed. 0 preserves exact reference behavior. At the default 0.02 m
     # termination the 27-voxel winners are nearly static after iteration 1,
     # so 0.5 (half the default pcm voxel) trades ~zero trajectory change for
-    # ~2x fewer correspondence passes (A/B in docs/BENCH_NOTES.md).
+    # ~2x fewer correspondence passes.
     corr_refresh_dist_m: float = 0.0
     min_overlap_ratio: float = 0.4
     max_fitness_score: float = 0.5
@@ -176,7 +176,7 @@ class PcmConfig:
 
 @dataclass
 class ShapeBudget:
-    """Static shape capacities — the TPU-native replacement for the reference's
+    """Static shape capacities — the static-shape replacement for the reference's
     dynamic containers (SURVEY.md §5.7). All padded tensors carry validity
     masks; these bounds pick the compiled shapes."""
 

@@ -29,13 +29,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from . import pytree
 
 from .ops import lie
 from .ops.frames import local_to_global_velocity
 
 
-@struct.dataclass
+@pytree.dataclass
 class DeskewInfo:
     """Precomputed per-scan deskew state (the reference's member arrays)."""
 
@@ -161,8 +161,8 @@ def make_deskew_info(imu_time, imu_gyro, imu_valid, ring_time, ring_pos,
     """``window_budget``: the per-point interpolation (the [N, W] clipped
     interval weights in _find_rotation_batch) pays for the full ring width, but only
     the samples inside the scan window matter and the ring is chronological
-    — so the window is COMPACTED to a contiguous W-slice first (measured
-    ~1.6 ms/frame saved at a 256-slot ring and 26k points). 64 covers a
+    — so the window is COMPACTED to a contiguous W-slice first (at a
+    256-slot ring and 26k points, [N, 64] instead of [N, 256]). 64 covers a
     0.11 s sweep at up to ~580 Hz IMU; an overflowing window clamps its
     tail and clears ``imu_covers_start``."""
     rot, inc, first, last, imu_ok = imu_deskew_info(
@@ -196,8 +196,8 @@ def make_deskew_info(imu_time, imu_gyro, imu_valid, ring_time, ring_pos,
 def _find_rotation_batch(info: DeskewInfo, point_times):
     """FindRotation (cpp:731-762) for all points at once, gather-free.
 
-    Per-point random access into the IMU arrays is the slowest pattern on TPU
-    (scalar-core gathers). The reference's two-sample linear interpolation
+    Per-point random access into the IMU arrays would be one gather per
+    point; this form has none. The reference's two-sample linear interpolation
     into the integrated-rotation table is a piecewise-linear function of
     time, which is algebraically a sum over sample INTERVALS:
 

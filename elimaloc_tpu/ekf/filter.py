@@ -1,4 +1,4 @@
-"""27-state error-state EKF — pure-function re-implementation for TPU.
+"""27-state error-state EKF — pure-function re-implementation in JAX.
 
 Every routine mirrors the math and gating of the reference EkfAlgorithm
 (reference: src/app/localization/ekf_localization/src/ekf_algorithm.cpp) but is
@@ -60,20 +60,19 @@ _D2R = jnp.pi / 180.0
 def _bmm(a, b):
     """Small [m,k]@[k,n] as broadcast-multiply-reduce.
 
-    Exact f32 on the VPU and fusable with neighboring elementwise work; a
-    ``jnp.matmul(..., precision=HIGHEST)`` on these tiny shapes instead
-    lowers to an MXU dot (3-pass bf16 decomposition) whose dispatch latency
-    dominates the 100-400 Hz IMU chain (docs/BENCH_NOTES.md round-4/5 IMU
-    split)."""
+    Exact f32 elementwise arithmetic that fuses with neighboring work; a
+    ``jnp.matmul(..., precision=HIGHEST)`` on these tiny shapes is a
+    separate dot per product inside the latency-bound 100-400 Hz IMU
+    chain."""
     return jnp.sum(a[:, :, None] * b[None, :, :], axis=1)
 
 
-def _vpu_forms(dtype) -> bool:
-    """True when the latency-oriented VPU forms (``_bmm``, sparse F P F^T)
-    should replace dense HIGHEST-precision matmuls.
+def _latency_forms(dtype) -> bool:
+    """True when the latency-oriented elementwise forms (``_bmm``, sparse
+    F P F^T) should replace dense HIGHEST-precision matmuls.
 
-    f32 is the TPU production dtype — there the forms are exact (VPU f32
-    arithmetic) and markedly faster. f64 is the ORACLE-PARITY mode: the
+    f32 is the device production dtype — there the forms are exact (f32
+    elementwise arithmetic). f64 is the ORACLE-PARITY mode: the
     closed-loop parity tests (tests/test_oracle_parity.py) pin the pipeline
     against the float64 NumPy transliteration at centimeter bounds, which
     requires matching its dense accumulation order — an algebraically
@@ -229,13 +228,12 @@ def _ekf_measurement_update(state: EkfState, idx: Tuple[int, ...], Y, R,
     S = Pi[:, idx_a] + R                # H P H^T + R
     PHt = P[:, idx_a]                   # [27,m]
     m = len(idx)
-    small = m <= 3 and _vpu_forms(P.dtype)
+    small = m <= 3 and _latency_forms(P.dtype)
     mm = _bmm if small else (lambda a, b: jnp.matmul(a, b, precision=_HI))
     if m == 2:
-        # closed-form 2x2 inverse: linalg.solve lowers to an LU custom call,
-        # which costs ~an entire complementary-filter step at the 100-400 Hz
-        # IMU rate (tools/profile_cf.py); S is SPD here, the adjugate form
-        # is numerically fine
+        # closed-form 2x2 inverse: linalg.solve lowers to an LU custom call
+        # on every step of the 100-400 Hz IMU chain; S is SPD here, the
+        # adjugate form is numerically fine
         det = S[0, 0] * S[1, 1] - S[0, 1] * S[1, 0]
         Sinv = jnp.array([[S[1, 1], -S[0, 1]],
                           [-S[1, 0], S[0, 0]]]) / det
@@ -304,19 +302,18 @@ def _fpf_dense(P, G_R_I, Jr, dt, flags: EkfFlags, dtype):
 
 
 def _fpf_sparse(P, G_R_I, Jr, dt, flags: EkfFlags):
-    """F P F^T in sparse block form — the f32/TPU production form.
+    """F P F^T in sparse block form — the f32 production form.
 
     F = I + A where A's only nonzero rows are 0:15 (pos/rot/vel/gyro/acc
     blocks vs the vel / bias-gyro / bias-acc / gravity-z columns). With P
     symmetric,
         F P F^T = P + B + B^T + A B^T,   B = A P,
-    and each block-row of "A @ X" is a couple of 3x3 @ 3xN products — pure
-    fused VPU arithmetic instead of two dense 27x27 HIGHEST-precision MXU
-    dots, which dominate the dispatch-latency-bound IMU chain
-    (docs/BENCH_NOTES.md round-4/5 IMU split). Algebraic identity with
+    and each block-row of "A @ X" is a couple of 3x3 @ 3xN products — fused
+    elementwise arithmetic instead of two dense 27x27 HIGHEST-precision
+    dots in the latency-bound IMU chain. Algebraic identity with
     ``_fpf_dense`` is pinned by tests/test_ekf.py::test_fpf_sparse_matches_dense;
     f64 keeps the dense form for closed-loop oracle-parity bit compatibility
-    (see ``_vpu_forms``)."""
+    (see ``_latency_forms``)."""
 
     def a_rows(X):
         """Rows 0:15 of A @ X for X of shape [27, n]."""
@@ -372,7 +369,7 @@ def _propagate_imu(state: EkfState, imu: ImuMeas, dt, params: EkfParams,
     Q = jnp.diag(qd)
 
     Jr = lie.right_jacobian_d_rot_d_gyro(corrected_gyro, dt)
-    if _vpu_forms(dtype):
+    if _latency_forms(dtype):
         P_new = _fpf_sparse(state.P, G_R_I, Jr, dt, flags) + Q
     else:
         P_new = _fpf_dense(state.P, G_R_I, Jr, dt, flags, dtype) + Q

@@ -1,4 +1,4 @@
-"""EKF state pytrees for the TPU-native ELiMaLoc rebuild.
+"""EKF state pytrees for the JAX ELiMaLoc rebuild.
 
 The reference keeps a 27-dimensional error-state EKF (reference:
 src/app/localization/ekf_localization/include/ekf_algorithm.hpp:41-69) as a
@@ -18,7 +18,7 @@ State vector layout (identical to ekf_algorithm.hpp:41-67):
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from .. import pytree
 
 # State indices (reference: ekf_algorithm.hpp:41-67)
 S_X, S_Y, S_Z = 0, 1, 2
@@ -36,7 +36,7 @@ GNSS_MEAS_ORDER = 6
 INIT_STATE_COV = 100.0  # reference: ekf_algorithm.hpp:73
 
 
-@struct.dataclass
+@pytree.dataclass
 class EkfState:
     """Nominal state + covariance + filter bookkeeping (one pytree).
 
@@ -77,7 +77,7 @@ class EkfState:
     cf_prev_time: jnp.ndarray               # scalar
 
 
-@struct.dataclass
+@pytree.dataclass
 class ImuMeas:
     """Ego-frame IMU sample (reference: ImuStruct, localization_struct.hpp:126)."""
 
@@ -86,7 +86,7 @@ class ImuMeas:
     gyro: jnp.ndarray  # [3]
 
 
-@struct.dataclass
+@pytree.dataclass
 class GnssMeas:
     """6-DOF pose measurement (reference: EkfGnssMeasurement,
     localization_struct.hpp:146-153)."""
@@ -99,7 +99,7 @@ class GnssMeas:
     rot_cov: jnp.ndarray  # [3,3]
 
 
-@struct.dataclass
+@pytree.dataclass
 class CanMeas:
     """CAN wheel-speed sample (reference: CanStruct, localization_struct.hpp:120)."""
 
@@ -108,7 +108,7 @@ class CanMeas:
     gyro: jnp.ndarray  # [3] local, only z valid
 
 
-@struct.dataclass
+@pytree.dataclass
 class EkfParams:
     """Continuous EKF parameters as dynamic pytree leaves so hot-reloaded
     config changes (SURVEY.md §5.6) do not trigger recompilation. Built from

@@ -4,8 +4,9 @@ The reference builds an ``unordered_map<Vector3i, VoxelBlock>`` on the CPU at
 node startup (reference: src/app/localization/pcm_matching/src/
 voxel_hash_map.cpp:270-285 AddPoints; include/voxel_hash_map.hpp:94-148
 VoxelBlock/CalVoxelCov, 195-257 per-point GICP covariance). A pointer-chasing
-hash map cannot live on a TPU, so the builder produces a *packed* static-shape
-representation instead (SURVEY.md §7 step 3):
+hash map cannot live in a static-shape device program, so the builder
+produces a *packed* static-shape representation instead (SURVEY.md §7 step
+3):
 
   * ``vox_coords [V,3] int32`` — integer voxel coordinates, one row per
     occupied voxel;
@@ -73,8 +74,8 @@ def hash_coords(coords: np.ndarray, table_size: int) -> np.ndarray:
 
 def fingerprint_coords(coords: np.ndarray) -> np.ndarray:
     """Secondary 32-bit fingerprint used to verify probe hits without
-    gathering the full 3-int coordinate row (a tiny-slice gather is the
-    slowest access pattern on TPU). Independent seed from the slot hash;
+    gathering the full 3-int coordinate row (one 32-bit compare per probe
+    instead of three). Independent seed from the slot hash;
     never 0, so 0 marks empty slots."""
     fp = _mix_coords(coords, seed=0x51ED270B)
     return np.where(fp == 0, np.uint32(1), fp)

@@ -1,6 +1,6 @@
 """Device-resident voxel grid: open-addressing lookup + vectorized queries.
 
-TPU-native replacement for the reference's pointer-chasing voxel hash map
+Static-shape replacement for the reference's pointer-chasing voxel hash map
 (reference: src/app/localization/pcm_matching/include/voxel_hash_map.hpp and
 src/voxel_hash_map.cpp). The three correspondence kernels — nearest point in
 the 27-voxel neighborhood (cpp:31-88), nearest voxel covariance (cpp:90-151),
@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import pytree
 
 from .builder import BuiltMap
 
@@ -39,7 +39,7 @@ OFFSETS_7 = np.array(
 )
 
 
-@struct.dataclass
+@pytree.dataclass
 class MapGrid:
     """Packed map tensors. Row V (the last) of every voxel-indexed array is a
     sentinel: coords that never match, counts 0, +inf geometry."""
@@ -56,9 +56,9 @@ class MapGrid:
     point_cov: Optional[jnp.ndarray]       # [V+1,M,3,3] f32 or None (GICP only)
     point_cov_mean: Optional[jnp.ndarray]  # [V+1,M,3] f32 or None
 
-    voxel_size: float = struct.field(pytree_node=False)
-    table_size: int = struct.field(pytree_node=False)
-    max_probe: int = struct.field(pytree_node=False)
+    voxel_size: float = pytree.field(pytree_node=False)
+    table_size: int = pytree.field(pytree_node=False)
+    max_probe: int = pytree.field(pytree_node=False)
 
     @property
     def num_voxels(self) -> int:
@@ -157,8 +157,8 @@ def lookup(grid: MapGrid, coords) -> jnp.ndarray:
     max_probe entries so windows never wrap), then a branch-free resolve:
     a slot hits when its 32-bit coordinate fingerprint matches and no empty
     slot precedes it in the chain (std::unordered_map find semantics). The
-    fingerprint replaces the reference-style full-coordinate verify — a
-    3-element gather per probe is the slowest access pattern on TPU; the
+    fingerprint replaces the reference-style full-coordinate verify (one
+    gather per probe instead of a 3-element row gather); the
     residual false-hit probability is ~max_probe * 2^-32 per query.
     """
     sent = grid.sentinel
@@ -276,7 +276,7 @@ def voxel_downsample(points, valid, voxel_size, out_size: int):
     (points [out_size,3], valid [out_size], kept_count).
 
     The voxel key is a *mixed* (hashed) packing so (a) one stable sort
-    replaces a 4-key lexsort (TPU sorts are scalar-core-bound), and (b) when
+    replaces a 4-key lexsort, and (b) when
     the number of occupied voxels exceeds ``out_size`` the dropped voxels are
     spatially unbiased — a coordinate-ordered sort would cut off one side of
     the cloud, which measurably biases downstream ICP."""
@@ -294,8 +294,7 @@ def voxel_downsample(points, valid, voxel_size, out_size: int):
         jnp.uint32(0xFFFFFFFF),
     )
     # Multi-operand sort: carrying the payload lanes THROUGH the sort
-    # (XLA sorts tuples natively) replaces argsort + 7 permutation gathers —
-    # TPU gathers are scalar-core-bound, the sorted payloads are free.
+    # (XLA sorts tuples natively) replaces argsort + 7 permutation gathers.
     # Stable + same key => bitwise-identical to argsort(stable) + gathers.
     (_, cx, cy, cz, sv, px, py, pz) = jax.lax.sort(
         (key, keys[:, 0], keys[:, 1], keys[:, 2], valid,

@@ -1,10 +1,9 @@
-"""Tile-blocked correspondence engine — the TPU fast path.
+"""Tile-blocked correspondence engine — the default ICP backend.
 
 The hash-grid queries in grid.py are semantically exact but gather-bound:
-XLA lowers per-point random access to scalar-core loops (~0.1M elements/ms on
-v5e), so 8192 queries x 27 probes cost tens of milliseconds. This module
-restructures the same correspondence semantics (reference:
-voxel_hash_map.cpp:31-206) into a TPU-native dataflow:
+8192 queries x 27 probes x the voxel's points are random-access reads. This
+module restructures the same correspondence semantics (reference:
+voxel_hash_map.cpp:31-206) into a dense, contiguous-read dataflow:
 
   1. Map points/voxels are sorted into 2D spatial TILES (a few voxels wide,
      full z column). At build time each tile precomputes its HALO candidate
@@ -13,16 +12,16 @@ voxel_hash_map.cpp:31-206) into a TPU-native dataflow:
      cube can reach — packed as one contiguous padded row.
   2. At query time, scan points are sorted by tile id and packed into fixed
      [slot, QB] blocks (a slot = one tile's queries, chunked by QB).
-  3. Each slot fetches its halo row with a single contiguous DMA and
-     evaluates the dense [QB, MH] distance matrix on the MXU, masked back to
+  3. Each slot fetches its halo row with a single contiguous read and
+     evaluates the dense [QB, MH] distance matrix, masked back to
      the exact 27-voxel cube so results match the hash grid bit-for-bit (up
      to argmin tie order).
   4. Results scatter back through the sort permutation.
 
 The halo layout replaced round 1/2's 9-neighbor-tile gather ([QB, 9*MTP]
 candidates): growing a 4x4-voxel tile by one voxel is a 6x6 footprint, so the
-dense matrix shrinks ~5x (measured 4.9x wall-clock on the bench map) for a
-~2.3x duplication of map points in HBM. Halo rows of window-edge tiles keep
+dense matrix shrinks ~5x for a ~2.3x duplication of map points in device
+memory. Halo rows of window-edge tiles keep
 their full-map contents, so active-window crops stay exact one voxel past the
 window boundary.
 
@@ -38,9 +37,9 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import pytree
 
-# TPU f32 matmuls default to bf16 operands; distance matrices and one-hot
+# GPU f32 matmuls may default to TF32; distance matrices and one-hot
 # selections need true f32.
 _HI = jax.lax.Precision.HIGHEST
 
@@ -50,7 +49,7 @@ from .grid import OFFSETS_7
 _COORD_SENTINEL = np.int32(2**30)
 
 
-@struct.dataclass
+@pytree.dataclass
 class TileMap:
     """Tile-blocked map tensors. Row T (last) of tile-indexed arrays is a
     sentinel (count 0, +inf geometry)."""
@@ -65,12 +64,12 @@ class TileMap:
     halo_vox_cov: jnp.ndarray           # [T+1, MHV, 3, 3]
     halo_vox_coord: jnp.ndarray         # [T+1, MHV, 3] int32, pad sentinel
 
-    voxel_size: float = struct.field(pytree_node=False)
-    tile_size: float = struct.field(pytree_node=False)
-    tx0: int = struct.field(pytree_node=False)   # tile-grid origin (tile units)
-    ty0: int = struct.field(pytree_node=False)
-    tx_dim: int = struct.field(pytree_node=False)
-    ty_dim: int = struct.field(pytree_node=False)
+    voxel_size: float = pytree.field(pytree_node=False)
+    tile_size: float = pytree.field(pytree_node=False)
+    tx0: int = pytree.field(pytree_node=False)   # tile-grid origin (tile units)
+    ty0: int = pytree.field(pytree_node=False)
+    tx_dim: int = pytree.field(pytree_node=False)
+    ty_dim: int = pytree.field(pytree_node=False)
 
     # world offset of the map's coordinate frame (nonzero for active-window
     # crops: point coords are stored window-locally so the window can move
@@ -101,9 +100,8 @@ class TileQueryBudget:
     qb: int = 32           # queries per slot
     max_slots: int = 2560  # >= N/qb + (#occupied query tiles)
     # Slots vmapped per lax.map step of the correspondence pass. Small chunks
-    # serialize S/chunk ~2 us micro-fusions (the round-3 profiler trace showed
-    # 286 sequential steps per pass at chunk=8); large chunks grow the live
-    # [chunk, QB, MHP] candidate tensors. Swept on v5e: 88 ~ 286 > 8 > 2288.
+    # serialize S/chunk small fusions per pass; large chunks grow the live
+    # [chunk, QB, MHP] candidate tensors. Not yet tuned for the GPU.
     chunk: int = 88
 
     def for_queries(self, n: int):
@@ -120,8 +118,8 @@ def _halo_membership(vox_xy, tile_voxels, tx0, ty0, tx_dim, ty_dim,
     >= tv - margin the +1 neighbor (both, per axis, when they overlap).
     margin=2 keeps the cube covered for queries that have DRIFTED up to one
     voxel outside their assigned tile — what lets AVGICP hoist the slot
-    assignment out of the GN loop without the halo-edge candidate loss
-    (BENCH_NOTES round-4 AVGICP root cause). Requires margin <= tile_voxels
+    assignment out of the GN loop without the halo-edge candidate loss.
+    Requires margin <= tile_voxels
     (a wider margin would need +-2 tile membership)."""
     tv = tile_voxels
     if not 1 <= margin <= tv:
@@ -278,7 +276,7 @@ def load_tile_map(storage_dir, mmap: bool = True) -> "HostTileMap":
 
     p = pathlib.Path(storage_dir)
     meta = json.loads((p / "meta.json").read_text())
-    meta.setdefault("halo_margin", 1)  # maps persisted before round 5
+    meta.setdefault("halo_margin", 1)  # maps persisted without the key
     mode = "r" if mmap else None
     ld = lambda name: np.load(str(p / f"{name}.npy"), mmap_mode=mode)
     has_cov = meta.pop("has_point_cov")
@@ -545,8 +543,8 @@ _shift_window_jit = jax.jit(_shift_window_impl)
 
 def shift_window(tmap: TileMap, dx: int, dy: int, dst_rows, payload) -> TileMap:
     """Move a resident device window by (dx, dy) tiles WITHOUT re-uploading
-    it: retained tile rows roll on device (one contiguous-row gather — rows
-    are the cheap gather shape on TPU), the entering rows from
+    it: retained tile rows roll on device (one contiguous-row gather), the
+    entering rows from
     :meth:`HostTileMap.crop_entering_rows` scatter in (the only H2D), and
     the dynamic ``tile_anchor`` leaf advances while the coordinate
     ``origin`` stays FIXED — so retained coordinates are untouched bits and
@@ -564,7 +562,7 @@ def shift_window(tmap: TileMap, dx: int, dy: int, dst_rows, payload) -> TileMap:
 
 # --------------------------------------------------------------------------- #
 
-@struct.dataclass
+@pytree.dataclass
 class SlotAssignment:
     qbuf: jnp.ndarray       # [S, QB, 3] queries (garbage where ~qmask)
     qvox: jnp.ndarray       # [S, QB, 3] int32 query voxel coords
@@ -603,7 +601,7 @@ def assign_slots(tmap: TileMap, queries, valid, budget: TileQueryBudget) -> Slot
     tile = jnp.where(valid & in_reach, tx * tmap.ty_dim + ty, t_sent)
 
     # Multi-operand sort: payload lanes ride the sort instead of argsort +
-    # 7 permutation gathers (scalar-core-bound on TPU). Stable + same key =>
+    # 7 permutation gathers. Stable + same key =>
     # identical layout to the argsort form.
     idx = jnp.arange(n, dtype=jnp.int32)
     (st, order, q0, q1, q2, v0, v1, v2) = jax.lax.sort(
@@ -647,7 +645,7 @@ def assign_slots(tmap: TileMap, queries, valid, budget: TileQueryBudget) -> Slot
 
 def _slot_centers(tmap: TileMap, slot_tile, dtype):
     """Per-slot tile-center offsets. Distances are evaluated on tile-local
-    coordinates so the MXU |q|^2 - 2 q.c + |c|^2 expansion keeps full f32
+    coordinates so the |q|^2 - 2 q.c + |c|^2 expansion keeps full f32
     precision at map-scale coordinates (z is left global: vehicle maps are
     z-shallow)."""
     ax0 = tmap.tx0 if tmap.tile_anchor is None else tmap.tx0 + tmap.tile_anchor[0]
@@ -715,8 +713,9 @@ def nearest_point_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask, max_dist,
     """Slot-layout core of :func:`query_nearest_point`: correspondence for
     pre-assigned per-tile query blocks, no scatter back to query order. Used
     directly by the ICP inner loop, where slot assignment is hoisted out of
-    the Gauss-Newton iteration (sort/scatter are TPU scalar-core-bound; the
-    GN sums are permutation-invariant so results never need re-ordering).
+    the Gauss-Newton iteration (the sort and scatter run once per
+    registration; the GN sums are permutation-invariant so results never
+    need re-ordering).
 
     Returns (target [S,QB,3], ok [S,QB]) + (cov [S,QB,3,3], mean [S,QB,3])
     when ``with_point_cov``.
@@ -725,16 +724,14 @@ def nearest_point_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask, max_dist,
 
     def per_slot(args):
         q, qv, qm, tid, ctr = args                       # [QB,3],[QB,3],[QB],[],[3]
-        cand = tmap.halo_points[tid]                     # [MHP,3] one DMA
+        cand = tmap.halo_points[tid]                     # [MHP,3] one row
         finite = jnp.isfinite(cand[:, 0])
-        cand_safe = jnp.where(finite[:, None], cand, 0.0)  # keep inf out of MXU
+        cand_safe = jnp.where(finite[:, None], cand, 0.0)  # keep inf out
         cvox = jnp.floor(cand_safe / tmap.voxel_size).astype(jnp.int32)
         cube = _cube_mask(qv, cvox) & finite[None, :]    # [QB, MHP]
-        # dense squared distance on tile-local coordinates, exact VPU
-        # diff^2 sums: a K=3 matmul uses ~0.3% of the MXU and the HIGHEST
-        # 6-pass decomposition on top of it; the elementwise form measured
-        # faster (0.84 vs 0.91 ms/pass) AND avoids the q^2+c^2-2qc
-        # cancellation (BENCH_NOTES round-3 variants)
+        # dense squared distance on tile-local coordinates as exact
+        # elementwise diff^2 sums: a K=3 contraction gains nothing from a
+        # matmul unit, and this form avoids the q^2+c^2-2qc cancellation
         ql = q - ctr
         cl = jnp.where(finite[:, None], cand_safe - ctr, 0.0)
         diff = ql[:, None, :] - cl[None, :, :]           # [QB, MHP, 3]
@@ -814,7 +811,7 @@ def nearest_voxel_cov_slots(tmap: TileMap, slot_tile, qbuf, qvox, qmask,
         occupied = cvox[:, 0] != _COORD_SENTINEL
         cube = _cube_mask(qv, cvox) & occupied[None, :]
         m_safe = jnp.where(occupied[:, None], means, 0.0)
-        # exact VPU diff^2 (see nearest_point_slots)
+        # exact elementwise diff^2 (see nearest_point_slots)
         ql = q - ctr
         ml = jnp.where(occupied[:, None], m_safe - ctr, 0.0)
         diff = ql[:, None, :] - ml[None, :, :]

@@ -1,6 +1,6 @@
 """Geodetic <-> local-Cartesian (ENU) projection on the WGS84 ellipsoid.
 
-TPU-native replacement for the GeographicLib ``LocalCartesian`` forward/reverse
+JAX replacement for the GeographicLib ``LocalCartesian`` forward/reverse
 used by the reference EKF node (reference: src/app/localization/ekf_localization/
 src/ekf_localization.cpp:412-418, 643-648). Implemented from the standard
 geodetic <-> ECEF equations (no third-party geodesy dependency); the reverse

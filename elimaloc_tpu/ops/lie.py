@@ -1,15 +1,15 @@
-"""SO(3) / quaternion / Euler utilities for the TPU-native ELiMaLoc rebuild.
+"""SO(3) / quaternion / Euler utilities for the JAX ELiMaLoc rebuild.
 
 Re-implements, with identical semantics, the Lie-algebra and angle helpers of the
 reference's shared math header (reference: src/app/localization/localization_interface/
 localization_functions.hpp:248-483) as pure, dtype-agnostic ``jax.numpy`` functions.
 
-Design notes (TPU-first):
+Design notes:
   * All small-angle branches are expressed with ``jnp.where`` on safe operands
     (no data-dependent Python control flow) so every function is jit/vmap-able.
   * Quaternions are ``[..., 4]`` arrays in ``(w, x, y, z)`` order.
   * Functions follow input dtypes; tests run them in float64 on CPU for parity,
-    the TPU pipeline runs float32.
+    the device pipeline runs float32.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-_HI = jax.lax.Precision.HIGHEST  # TPU f32 matmul defaults to bf16 operands
+_HI = jax.lax.Precision.HIGHEST  # GPU f32 matmuls may default to TF32
 
 _EPS_THETA = 1e-5  # small-angle guard, same threshold as the reference
 
@@ -338,10 +338,10 @@ def make_transform(rot, trans):
 def compose(a, b):
     """Rigid 4x4 compose a @ b at full f32 precision.
 
-    Pose translations at map scale (~100 m) quantize to 0.125-0.5 m under the
-    TPU's default bf16 matmul operands — enough to freeze ICP (a centimeter
-    step rounds back to the same pose). Every pose compose must go through
-    here (or carry an explicit precision=HIGHEST)."""
+    Pose translations at map scale (~100 m) quantize to ~0.06 m under TF32,
+    which a GPU may use for f32 matmuls at default precision — enough to
+    freeze ICP (a centimeter step rounds back to the same pose). Every pose
+    compose must go through here (or carry an explicit precision=HIGHEST)."""
     return jnp.matmul(a, b, precision=_HI)
 
 
@@ -381,9 +381,9 @@ def interpolate_tf_with_time(tf_between, dt_scan, dt_trans):
 
 
 def inv3x3(m):
-    """Batched closed-form 3x3 inverse (adjugate/det) — cheaper and more
-    fusion-friendly on TPU than linalg.inv/solve for [...,3,3] stacks (a
-    tiny LU custom call per instance otherwise)."""
+    """Batched closed-form 3x3 inverse (adjugate/det) — elementwise and
+    fusable, where linalg.inv/solve on [...,3,3] stacks would be a batched
+    LU library call."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]

@@ -2,19 +2,19 @@
 
 The reference's complete concurrency story is intra-process TBB data
 parallelism over points plus two localhost ROS processes (SURVEY.md §2
-C11-C13); there is no multi-machine path. The TPU-native equivalents:
+C11-C13); there is no multi-machine path. The multi-device equivalents:
 
   * ``sp`` (spatial/point parallel): one registration's source-point axis is
     sharded over devices with ``shard_map``; the per-iteration Gauss-Newton
     partials (matched count, 6x6 JTJ, 6x1 JTr, fitness numerator) are psum'd
-    over ICI so every device runs the identical LM solve and termination in
+    so every device runs the identical LM solve and termination in
     lockstep — the associative reduction tbb::parallel_reduce exploits on CPU
     (voxel_hash_map.cpp:57-84), expressed as an XLA collective.
   * ``dp`` (data parallel): independent registrations (multi-vehicle fleets,
     batched log replay, relocalization hypothesis search) shard over the
     batch axis with no cross-talk.
 
-The map itself is replicated (tens of MB — ICI broadcast once); sharding the
+The map itself is replicated (tens of MB — broadcast once); sharding the
 map axis instead would be the memory-bound regime, not the compute-bound one.
 """
 
@@ -31,9 +31,9 @@ from ..register.icp import IcpParams, IcpStatic
 
 
 def make_mesh(n_devices: int | None = None, dp: int | None = None,
-              axis_names=("dp", "sp")) -> Mesh:
-    """Build a (dp, sp) mesh over the available devices."""
-    devs = np.asarray(jax.devices())
+              axis_names=("dp", "sp"), devices=None) -> Mesh:
+    """Build a (dp, sp) mesh over ``devices`` (default: ``jax.devices()``)."""
+    devs = np.asarray(jax.devices() if devices is None else devices)
     n = n_devices or len(devs)
     devs = devs[:n]
     if dp is None:
@@ -154,7 +154,7 @@ def replay_fused_sp(state, batches, tmap, pp, ps, mesh: Mesh,
     EKF) for ONE stream, multi-chip: every stage runs replicated except the
     ICP correspondence + Gauss-Newton partials, whose tile-slot axis shards
     over ``axis`` (register/icp.py slot_shard_axis) with one 6x6-partial
-    psum per iteration riding ICI. State/batches/map are replicated; outputs
+    psum per iteration. State/batches/map are replicated; outputs
     are identical on every device (up to f32 summation order).
 
     This is the single-stream LATENCY mode: the dense correspondence —
@@ -223,7 +223,7 @@ def replay_fused_dp(states, batches, tmap, pp, ps, mesh: Mesh,
     ``states``/``batches`` carry a leading batch axis (a multiple of the
     mesh's ``axis`` size); the map and parameters are replicated. This is the
     fleet/parallel-log-replay scaling mode: zero cross-shard communication,
-    XLA partitions the vmapped program over ICI-connected chips.
+    XLA partitions the vmapped program over the devices.
     """
     batch_sharding = NamedSharding(mesh, P(axis))
     states = jax.tree_util.tree_map(
@@ -265,10 +265,9 @@ def replay_fused_fleet(states, batches, tmap, pp, ps):
     """Multi-stream fused replay on the CURRENT device set without a mesh:
     ``B`` independent logs vmapped over a leading lane axis, one shared map.
 
-    This is the single-chip serving/fleet mode (B vehicles localized by one
-    chip): the per-frame tensors are small enough that lanes amortize the
-    fixed per-frame dispatch/fusion overhead (measured on v5e: B=2 costs
-    ~15% more wall-clock than B=1). For a multi-chip fleet use
+    This is the single-device serving/fleet mode (B vehicles localized by
+    one card): the per-frame tensors are small enough that lanes amortize
+    the fixed per-frame dispatch/fusion overhead. For a multi-device fleet use
     :func:`replay_fused_dp`, which is the same vmapped program with the lane
     axis sharded over the mesh. Lane trajectories are identical to
     single-stream :func:`~elimaloc_tpu.pipeline.runtime.replay_fused` runs

@@ -14,12 +14,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import pytree
 
 from ..ops import lie
 
 
-@struct.dataclass
+@pytree.dataclass
 class EgoRing:
     """Published EKF state history (the fields PCM consumes from
     /app/loc/ekf_pose_odom: pose, local twist — see UpdateEkfOdom,
@@ -40,7 +40,7 @@ class EgoRing:
         return jnp.arange(self.capacity) < self.count
 
 
-@struct.dataclass
+@pytree.dataclass
 class ImuRing:
     t: jnp.ndarray     # [R]
     gyro: jnp.ndarray  # [R,3]
@@ -127,8 +127,8 @@ def _push_arrays_batch(ring, fields, new_t, valid, guard_eps):
     """M chronological pushes at once — same result as M sequential
     :func:`_push_arrays` calls, but the ring buffers are touched ONCE (one
     variable roll + one scatter per field) instead of per sample. In the
-    fused frame the per-sample pushes were ~0.2 ms/frame of pure ring
-    bookkeeping (tools/profile_imu.py).
+    fused frame the per-sample pushes were a sequence of small ring updates
+    per IMU sample.
 
     PRECONDITION: ``new_t`` is nondecreasing over ``valid`` samples — true
     for build_fused_batches sub-batches (events are bucketed time-sorted).

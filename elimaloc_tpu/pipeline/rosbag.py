@@ -8,7 +8,7 @@ datasets at `README.md:226-249`); its nodes subscribe `sensor_msgs/Imu`,
 framing, chunk decompression, and hand-written little-endian message
 deserializers — with no ROS installation, and assembles a
 :class:`~elimaloc_tpu.pipeline.log.ReplayLog` so an ELiMaLoc user's existing
-`.bag` + `.pcd` datasets replay through the TPU pipeline unchanged.
+`.bag` + `.pcd` datasets replay through the device pipeline unchanged.
 
 Bag format: http://wiki.ros.org/Bags/Format/2.0 — a `#ROSBAG V2.0` banner
 followed by length-prefixed records, each a header (length-prefixed

@@ -2,7 +2,7 @@
 
 Two jobs:
 
-1. **Measured baseline** for the TPU speedup claim: the reference publishes no
+1. **Measured baseline** for the device speedup claim: the reference publishes no
    numbers (BASELINE.md), so bench.py times this implementation — the same
    per-scan math (deskew, voxel downsample, 27-voxel correspondence over the
    packed hash grid, robust Gauss-Newton/LM ICP, EKF fusion) as
@@ -12,7 +12,7 @@ Two jobs:
    full log — 27-state EKF with every gate/aux filter, all four ICP methods,
    deskew, covariance shaping, latency compensation — in float64 with real
    Python control flow (the reference's early returns, not masks).
-   bench.py / tests measure ATE(TPU pipeline vs this oracle) on the same log.
+   bench.py / tests measure ATE(device pipeline vs this oracle) on the same log.
 
 Reference mapping (transliteration of the cited formulas, like
 tests/ref_numpy.py — the reference ships no tests, so an oracle must restate

@@ -1,4 +1,4 @@
-"""Scan-to-map registration: P2P / GICP / VGICP / AVGICP on TPU.
+"""Scan-to-map registration: P2P / GICP / VGICP / AVGICP in JAX.
 
 Re-implements the reference's Registration module (reference:
 src/app/localization/pcm_matching/src/registration.cpp) as one jitted
@@ -34,9 +34,9 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import pytree
 
-# TPU f32 matmuls default to bf16 operands; Gauss-Newton accumulation and
+# GPU f32 matmuls may default to TF32; Gauss-Newton accumulation and
 # frame transforms need true f32.
 _HI = jax.lax.Precision.HIGHEST
 
@@ -46,7 +46,7 @@ from ..map import tiles as maptiles
 from ..ops import lie
 
 
-@struct.dataclass
+@pytree.dataclass
 class IcpParams:
     """Continuous registration parameters (dynamic pytree leaves).
     Mirrors RegistrationConfig (registration.hpp:62-85)."""
@@ -59,7 +59,7 @@ class IcpParams:
     range_variance_m: jnp.ndarray
     azimuth_variance_deg: jnp.ndarray
     elevation_variance_deg: jnp.ndarray
-    # correspondence-reuse bound (TPU extension, PcmConfig.corr_refresh_dist_m
+    # correspondence-reuse bound (extension, PcmConfig.corr_refresh_dist_m
     # — 0 re-searches every iteration like the reference, cpp:310-347)
     corr_refresh_dist: jnp.ndarray
 
@@ -69,9 +69,9 @@ class IcpStatic:
     """Compile-time registration switches.
 
     ``backend`` selects the correspondence engine: "tile" (default) runs the
-    tile-blocked MXU path (map/tiles.py); "hash" runs the gather-based
+    tile-blocked dense path (map/tiles.py); "hash" runs the gather-based
     hash-grid reference path (map/grid.py). Results agree up to argmin tie
-    order; tile is ~12x faster on TPU. ``tile_budget`` bounds the slot
+    order. ``tile_budget`` bounds the slot
     packing; overflow drops queries conservatively (they count as unmatched).
     """
 
@@ -83,8 +83,7 @@ class IcpStatic:
     # when False (the default, corr_refresh_dist_m == 0) the while body is
     # the plain search+solve dataflow with NO match carry — the lax.cond
     # boundary and the per-iteration carry copy of the match tensors cost
-    # ~30% fused throughput (measured on v5e), so reference behavior must
-    # not pay for the feature.
+    # fused throughput, so reference behavior must not pay for the feature.
     corr_reuse: bool = False
     # Re-run the tile-slot assignment from the CURRENT pose every GN
     # iteration (exact reference search semantics, registration.cpp:310-347)
@@ -101,7 +100,7 @@ class IcpStatic:
     psum_axis: str | None = None
     # When set (tile backend), inputs are REPLICATED and the tile-SLOT axis
     # is sharded across this mesh axis instead: every device runs the cheap
-    # scalar-core stages (sort/pack) identically, evaluates the dense
+    # sort/pack stages identically, evaluates the dense
     # correspondence + Gauss-Newton partials for its own 1/n_dev slot range,
     # and psums the 6x6 partials. This is how the FUSED pipeline multi-chips
     # a single scan: spatially-random point sharding would leave each shard
@@ -132,7 +131,7 @@ def make_icp_static(cfg: PcmConfig, backend: str = "tile",
         # AVGICP sums ALL 7 face-adjacent voxel covs per point, so losing
         # halo-edge candidates to a stale initial-guess tile assignment is a
         # systematic bias (1.9-13.4 mm/registration vs the f64 oracle at
-        # 0.3 m init error, tools/diag_avgicp_parity.py); the argmin methods
+        # 0.3 m init error); the argmin methods
         # are insensitive (~1e-6 m) and keep the cheaper hoisted assignment.
         # an explicit corr_refresh_dist_m opt-in takes precedence (the two
         # are mutually exclusive; reused matches index a fixed assignment)
@@ -151,7 +150,7 @@ def make_icp_static(cfg: PcmConfig, backend: str = "tile",
     )
 
 
-@struct.dataclass
+@pytree.dataclass
 class IcpResult:
     pose: jnp.ndarray        # [4,4] refined sensor pose (global)
     success: jnp.ndarray     # bool
@@ -168,7 +167,7 @@ class IcpResult:
 # Small linear-algebra helpers
 # --------------------------------------------------------------------------- #
 
-# batched closed-form 3x3 inverse (moved to ops/lie.py round 4; kept name)
+# batched closed-form 3x3 inverse (lives in ops/lie.py; kept name)
 _inv3x3 = lie.inv3x3
 
 
@@ -216,9 +215,9 @@ def _smallest_eigvec(covs):
     matrices (cpp:88-95 uses SelfAdjointEigenSolver's first column).
 
     Closed form (trigonometric eigenvalues + null-space cross products):
-    jnp.linalg.eigh costs ~27 ms for 8k matrices on v5e, this runs on the VPU
-    in microseconds. Sign and the fully-degenerate case may differ from eigh;
-    the consumer only uses |r . n|."""
+    elementwise and fusable, where jnp.linalg.eigh on 8k matrices is a
+    batched library call. Sign and the fully-degenerate case may differ from
+    eigh; the consumer only uses |r . n|."""
     a = covs
     q = jnp.trace(a, axis1=-2, axis2=-1) / 3.0
     eye = jnp.eye(3, dtype=a.dtype)
@@ -662,11 +661,11 @@ def run_register(
         # once, from the initial guess. The GN iterations then run entirely
         # on the SLOT layout (_search_slots/_tails_from_matches) — the
         # masked sums are permutation-invariant, so no scatter back to query
-        # order is ever needed (measured 27% faster per iteration than
-        # scatter+[N]-row tails at bench shapes, and it is what the
-        # slot-sharded multi-chip mode partitions). With reassign_each_iter
-        # the loop body re-runs _assign from the current pose instead and
-        # the dropped diagnostic is accumulated through the carry.
+        # order is ever needed (no per-iteration scatter + [N]-row tails,
+        # and it is what the slot-sharded multi-chip mode partitions). With
+        # reassign_each_iter the loop body re-runs _assign from the current
+        # pose instead and the dropped diagnostic is accumulated through the
+        # carry.
         if reassign_on:
             asg = sbuf = radar_sbuf = None
             dropped = jnp.asarray(0, jnp.int32)
@@ -718,8 +717,8 @@ def run_register(
             # tile, cube voxels beyond the 1-voxel halo margin are silently
             # lost — invisible to the argmin methods but a systematic pair
             # loss for AVGICP, which sums all 7 face-adjacent covariances
-            # (tools/diag_avgicp_parity.py: 1.9-13.4 mm/registration at
-            # 0.3 m init error, vs ~1e-6 m with per-iteration assignment).
+            # (1.9-13.4 mm/registration at 0.3 m init error, vs ~1e-6 m
+            # with per-iteration assignment).
             asg_i, sbuf_i, radar_i = _assign(pose)
             dropped_c = jnp.maximum(dropped_c, asg_i.dropped.astype(jnp.int32))
             matched, JTJ, JTr, fit_num = _tails_from_matches(
@@ -765,8 +764,8 @@ def run_register(
         x, reg = _solve_step(JTJ, JTr, params.lm_lambda)
         x = jnp.where(overlap_ok, x, jnp.zeros_like(x))
         step_tf = _step_transform(x)
-        # lie.compose, NOT `@`: at default TPU matmul precision (bf16
-        # operands) a centimeter step rounds back into the unchanged pose.
+        # lie.compose, NOT `@`: at default GPU matmul precision (TF32) a
+        # centimeter step rounds back into the unchanged pose.
         pose_new = jnp.where(overlap_ok, lie.compose(pose, step_tf), pose)
 
         rot_norm = jnp.linalg.norm(lie.so3_log(step_tf[:3, :3]))

@@ -2,7 +2,7 @@
 
 The reference instruments its hot path with chrono cout macros gated by
 ``debug_print`` (reference: localization_functions.hpp:70-76, used at
-pcm_matching.cpp:213-323 and registration.cpp:307-403). The TPU equivalents:
+pcm_matching.cpp:213-323 and registration.cpp:307-403). The JAX equivalents:
 host-side wall timers that force device completion, stage annotations that
 show up in ``jax.profiler`` traces, and a tiny aggregator that prints a
 per-stage dashboard.

@@ -5,7 +5,7 @@
 // deskew / downsample, registration.cpp:273-418 RunRegister with the P2P
 // solver registration.cpp:15-66, correspondence voxel_hash_map.cpp:31-88),
 // single-threaded (the reference runs the same math under <=10 TBB threads).
-// Consumes the SAME packed map arrays as the TPU grid (table + fingerprint +
+// Consumes the SAME packed map arrays as the device grid (table + fingerprint +
 // per-voxel point blocks) so the comparison is math-for-math.
 //
 // Exposed as a C ABI via ctypes (elimaloc_tpu/map/native_builder.py).

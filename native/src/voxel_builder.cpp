@@ -3,7 +3,7 @@
 // Equivalent of the reference's CPU map build (reference:
 // src/app/localization/pcm_matching/src/voxel_hash_map.cpp:270-285 AddPoints
 // with min-spacing), re-implemented standalone: the insertion is sequential
-// and hash-heavy, the one part of the TPU-native pipeline that belongs on the
+// and hash-heavy, the one part of the pipeline that belongs on the
 // host in C++. Exposed as a C ABI consumed via ctypes
 // (elimaloc_tpu/map/native_builder.py); semantics are bit-identical to the
 // NumPy fallback in elimaloc_tpu/map/builder.py (floor bucketing, first-come

@@ -424,12 +424,12 @@ class TestJosephForm:
 
 
 def test_fpf_sparse_matches_dense():
-    """The f32/TPU sparse block form of F P F^T (filter._fpf_sparse) is
+    """The f32 sparse block form of F P F^T (filter._fpf_sparse) is
     algebraically identical to the dense Jacobian form the f64 oracle-parity
     mode keeps (filter._fpf_dense) for symmetric P. Pinned here in f64 so
     the production form's algebra is validated independently of the
     closed-loop parity tests (which require the dense accumulation order —
-    see filter._vpu_forms)."""
+    see filter._latency_forms)."""
     from elimaloc_tpu.ekf import filter as flt
 
     rng = np.random.default_rng(11)
@@ -447,5 +447,6 @@ def test_fpf_sparse_matches_dense():
             sparse = flt._fpf_sparse(P, G_R_I, Jr, dt, flags)
             np.testing.assert_allclose(np.asarray(sparse), np.asarray(dense),
                                        rtol=1e-12, atol=1e-12)
-    # dispatch: f32 takes the VPU forms, f64 the oracle-parity dense forms
-    assert flt._vpu_forms(jnp.float32) and not flt._vpu_forms(jnp.float64)
+    # dispatch: f32 takes the latency forms, f64 the oracle-parity dense forms
+    assert (flt._latency_forms(jnp.float32)
+            and not flt._latency_forms(jnp.float64))

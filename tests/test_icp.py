@@ -405,7 +405,7 @@ class TestAlignCloudsGlobal:
     "method", [IcpMethod.P2P, IcpMethod.GICP, IcpMethod.VGICP, IcpMethod.AVGICP]
 )
 def test_corr_reuse_equivalence(method):
-    """corr_refresh_dist_m > 0 (lazy correspondence reuse, a TPU extension —
+    """corr_refresh_dist_m > 0 (lazy correspondence reuse, an extension —
     the reference re-searches every iteration, registration.cpp:310-347) must
     land within millimeters of the always-refresh solution and converge."""
     map_pts = make_world()

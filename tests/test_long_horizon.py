@@ -3,7 +3,7 @@
 The 4-second parity loops (test_oracle_parity) bound implementation-vs-
 implementation divergence but say nothing about CUMULATIVE float32 drift
 over the real use case — minutes-to-hours of driving. This replays a
-62 s / ~600-scan synthetic log through ``run_fused`` in float32 (the TPU
+62 s / ~600-scan synthetic log through ``run_fused`` in float32 (the device
 production dtype) and asserts:
 
   * the tracking error shows no growth trend (slope of |err|(t) bounded),

@@ -1,4 +1,4 @@
-"""Oracle-parity tests (VERDICT round-1 items 1, 8, 9).
+"""Oracle-parity tests.
 
 1. Quarantine golden: the jitted EKF stepped THROUGH a PCM_INIT -> release
    window matches the float64 CpuEkf oracle at every intermediate state,
@@ -212,14 +212,14 @@ class TestTrajectoryParity:
         # Closed-loop divergence stays at the centimeter scale; both
         # trajectories also track truth.
         assert parity_ate < 0.01, f"pipeline-vs-oracle ATE {parity_ate}"
-        ate_tpu = ate_rmse(traj["t"], traj["pos"], log.truth_t, log.truth_pos)
+        ate_dev = ate_rmse(traj["t"], traj["pos"], log.truth_t, log.truth_pos)
         ate_cpu = ate_rmse(ctraj["t"], ctraj["pos"], log.truth_t,
                            log.truth_pos)
         # AVGICP's voxel-MEAN objective carries an intrinsic accuracy floor
         # at 1 m voxels (the reference behaves identically — see the parity
         # bound above, which is the actual implementation comparison)
         bound = 0.8 if method == IcpMethod.AVGICP else 0.25
-        assert ate_tpu < bound and ate_cpu < bound, (ate_tpu, ate_cpu)
+        assert ate_dev < bound and ate_cpu < bound, (ate_dev, ate_cpu)
 
 
 @pytest.mark.slow

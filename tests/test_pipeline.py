@@ -110,7 +110,7 @@ class TestRings:
     def test_batch_push_overflow_beyond_capacity(self):
         """M > capacity degrades like M sequential rolling pushes (the old
         trace-time assert made fused tracing fail where the per-sample path
-        rolled gracefully — ADVICE r4)."""
+        rolled gracefully)."""
         from elimaloc_tpu.pipeline.rings import push_imu_batch
 
         cap, m = 5, 9
@@ -128,7 +128,7 @@ class TestRings:
 
     def test_imu_subbatch_matches_sequential_steps(self):
         """runtime.imu_subbatch == scanning imu_step per sample (the fused
-        frame's IMU chain was restructured for TPU launch count; the
+        frame's IMU chain was restructured for launch count; the
         trajectory-visible state must be unchanged)."""
         import jax
 

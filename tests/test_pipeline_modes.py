@@ -113,7 +113,7 @@ def test_reload_config_swaps_params_without_losing_state():
 
 
 def test_ini_hot_reload_mid_replay(tmp_path):
-    """VERDICT r3 #8: the run loops poll a ConfigWatcher per frame (the
+    """The run loops poll a ConfigWatcher per frame (the
     reference's ProcessINI-per-IMU-callback, ekf_localization.cpp:141).
     Editing the ini mid-replay must swap continuous params WITHOUT losing
     filter state and WITHOUT re-jitting (value-only changes hit the live
@@ -157,7 +157,7 @@ def test_ini_hot_reload_mid_replay(tmp_path):
 
 
 def test_dashboard_emits_during_run(capsys):
-    """VERDICT r3 #9: debug_print streams the 1 Hz (sim-time) sigma/config
+    """debug_print streams the 1 Hz (sim-time) sigma/config
     dashboard during replay (PrintState from the reference's 1 s timer,
     ekf_algorithm.cpp:176-180)."""
     pipe, log = tiny_pipe(duration=3.0)

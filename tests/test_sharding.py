@@ -132,8 +132,8 @@ def test_slot_sharded_matches_single_device():
 def test_sp_fused_replay_matches_single_device():
     """The FULL fused pipeline under slot sharding (replay_fused_sp) must
     produce the single-device trajectory: deskew/downsample/EKF run
-    replicated, ICP partials psum over the sp axis (VERDICT r2 item 2 —
-    the flagship pipeline is multi-chip, not just standalone registration)."""
+    replicated, ICP partials psum over the sp axis (the flagship pipeline is
+    multi-device, not just standalone registration)."""
     from elimaloc_tpu.config import ElimalocConfig
     from elimaloc_tpu.parallel.sharding import replay_fused_sp
     from elimaloc_tpu.pipeline import (

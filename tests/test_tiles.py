@@ -531,7 +531,7 @@ class TestMapWindow:
 
 def test_drop_page_cache_survives_one_failing_madvise():
     """A single failing madvise must not abort eviction of the remaining
-    tensors (VERDICT r4 weak #6: the loop returned instead of continuing)."""
+    tensors (a regression once returned instead of continuing)."""
     import mmap as _mmap
 
     calls = []
